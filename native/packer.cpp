@@ -2,7 +2,7 @@
 //
 // The reference's ingestion is a sequential Python loop (one imread + one
 // DataFrame row per image, ipynb:358-364). In this framework the host-side
-// hot loop that remains after moving compute to the TPU is assembling
+// hot loop that remains after moving compute to the device is assembling
 // variable-size object crops into fixed-shape (B, H, W, C) device-feed
 // buffers: center crop/pad, dtype widening, and 16-bit -> level quantisation.
 // That is pure memory movement, so it lives here as a small C++ library with

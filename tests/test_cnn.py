@@ -6,9 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpumcia.io.synthetic import synthetic_multichannel
-from tpumcia.models.cnn import make_resnet
-from tpumcia.models.train import CNNConfig, CNNHead, fit_cnn
+# the CNN is an optional extra (pip install .[cnn]): without flax this
+# module skips as a whole, on every worker alike
+pytest.importorskip("flax")
+
+from tpumcia.io.synthetic import synthetic_multichannel  # noqa: E402
+from tpumcia.models.cnn import make_resnet  # noqa: E402
+from tpumcia.models.train import CNNConfig, CNNHead, fit_cnn  # noqa: E402
 
 pytestmark = pytest.mark.slow  # heavy: compile/train-bound (use `make test-fast` to skip)
 

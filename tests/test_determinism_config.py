@@ -36,7 +36,7 @@ def test_reference_roundtrip_is_exact_in_f64():
 def test_feature_extraction_deterministic(small_batch):
     from tpumcia.features.extract import extract_features
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     a = extract_features(small_batch, config=cfg)
     b = extract_features(small_batch, config=cfg)
     np.testing.assert_array_equal(np.asarray(a.values), np.asarray(b.values))
@@ -50,7 +50,7 @@ def test_pipeline_deterministic():
 
     images, labels, _ = synthetic_multichannel(8, num_classes=3, seed=1)
     cfg = PipelineConfig(
-        features=FeatureConfig(use_pallas="never"),
+        features=FeatureConfig(),
         head=HeadConfig(kind="logistic", num_steps=100),
         importance=ImportanceConfig(n_repeats=3),
     )

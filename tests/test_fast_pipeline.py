@@ -349,9 +349,8 @@ def test_fast_path_predicates_shared():
 
 def test_pending_in_flight_pacing(workload):
     """With in_flight smaller than the batch count the enqueue loop paces
-    itself by fetching one element of the oldest outstanding wire (a real
-    D2H round trip — block_until_ready does not synchronize through the
-    remote link). Values must be unaffected by the window size."""
+    itself by waiting for the oldest outstanding wire. Values must be
+    unaffected by the window size."""
     import jax
 
     from tpumcia.features.extract import extract_features_pending
@@ -399,7 +398,7 @@ def test_feature_matrix_save_load_round_trips_config():
     rng = np.random.RandomState(0)
     imgs = (rng.random((3, 16, 16, 2)) * 256).astype(np.uint8)
     cfg = FeatureConfig(
-        glcm=GLCMConfig(distance=(3, 5), angle=0.0), use_pallas="never"
+        glcm=GLCMConfig(distance=(3, 5), angle=0.0)
     )
     fm = extract_features(imgs, config=cfg, channel_names=["BF", "GFP"])
     p = Path(tempfile.mkdtemp()) / "fm.npz"
@@ -459,7 +458,7 @@ def test_pipeline_survives_degenerate_channels():
         imgs,
         labels,
         config=PipelineConfig(
-            features=FeatureConfig(use_pallas="never"),
+            features=FeatureConfig(),
             head=HeadConfig(kind="logistic", num_steps=100),
             importance=ImportanceConfig(n_repeats=2),
         ),

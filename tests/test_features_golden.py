@@ -1,4 +1,4 @@
-"""Golden-value tests: the TPU (XLA) feature path vs the CPU oracle.
+"""Golden-value tests: the device (XLA) feature path vs the CPU oracle.
 
 BASELINE.md target: feature MAE < 1e-5 vs the reference formulas. The exact
 path lands around 1e-12 because the device reduces to integer sufficient
@@ -13,7 +13,7 @@ from tpumcia.features.extract import extract_features
 from tpumcia.features.stats import rescale_lut, sufficient_stats, glcm_matrix
 from tpumcia.reference_impl import oracle
 
-XLA_CFG = FeatureConfig(precision="exact", use_pallas="never")
+XLA_CFG = FeatureConfig(precision="exact")
 
 
 def _oracle_matrix(imgs):
@@ -160,7 +160,7 @@ def test_glcm_offset_configs(rng):
     for distance, angle in [(1, 0.0), (3, np.pi / 2), (2, np.pi / 4)]:
         cfg = FeatureConfig(
             glcm=GLCMConfig(distance=distance, angle=angle),
-            precision="exact", use_pallas="never",
+            precision="exact",
         )
         fm = extract_features(img, config=cfg)
         for b in range(2):
@@ -205,10 +205,10 @@ def test_glcm_matrix_symmetric_normed(rng):
 
 def test_intensity_only_and_glcm_only(small_batch):
     fi = extract_features(
-        small_batch, config=FeatureConfig(include_glcm=False, precision="exact", use_pallas="never")
+        small_batch, config=FeatureConfig(include_glcm=False, precision="exact")
     )
     fg = extract_features(
-        small_batch, config=FeatureConfig(include_intensity=False, precision="exact", use_pallas="never")
+        small_batch, config=FeatureConfig(include_intensity=False, precision="exact")
     )
     assert fi.shape[1] == 51 and fg.shape[1] == 18
     full = extract_features(small_batch, config=XLA_CFG)
@@ -221,7 +221,7 @@ def test_device_precision_mode(small_batch):
     exact = extract_features(small_batch, config=XLA_CFG)
     dev = extract_features(
         small_batch,
-        config=FeatureConfig(precision="device", use_pallas="never"),
+        config=FeatureConfig(precision="device"),
     )
     a = np.asarray(dev.values, dtype=np.float64)
     b = exact.values
@@ -371,13 +371,13 @@ def test_extract_rejects_wide_dtypes_that_overflow_levels():
     imgs16 = rng.integers(0, 65536, (3, 12, 12, 2)).astype(np.uint16)
     for fn in (extract_features, extract_features_batched):
         with pytest.raises(TypeError, match="quantize_to_levels"):
-            fn(imgs16, config=FeatureConfig(use_pallas="never"))
+            fn(imgs16, config=FeatureConfig())
     # a level count that covers the dtype keeps uint16 legal
     small16 = (imgs16 >> 8).astype(np.uint16)  # values < 256 but wide dtype
     fm = extract_features(
         small16,
         config=FeatureConfig(
-            use_pallas="never", precision="exact", glcm=GLCMConfig(levels=512)
+            precision="exact", glcm=GLCMConfig(levels=512)
         ),
     )
     assert fm.shape[0] == 3
@@ -396,10 +396,10 @@ def test_extract_rejects_negative_levels_in_narrow_signed_dtypes():
     rng = np.random.default_rng(0)
     neg = rng.integers(-5, 5, (2, 8, 8, 1)).astype(np.int8)
     with pytest.raises(TypeError, match="quantize_to_levels"):
-        extract_features(neg, config=FeatureConfig(use_pallas="never"))
+        extract_features(neg, config=FeatureConfig())
     # non-negative int8 stays legal (values < 256 by construction)
     ok = np.abs(neg)
-    fm = extract_features(ok, config=FeatureConfig(use_pallas="never"))
+    fm = extract_features(ok, config=FeatureConfig())
     assert fm.shape[0] == 2
     with pytest.raises(TypeError, match="0-d"):
         _as_level_array(np.int32(3), 256)

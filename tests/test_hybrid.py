@@ -27,8 +27,8 @@ def test_fetch_concurrent_matches_plain():
         _fetch_concurrent(wide, min_bytes=0), np.asarray(wide)
     )
 
-HYBRID = FeatureConfig(precision="hybrid", use_pallas="never")
-EXACT = FeatureConfig(precision="exact", use_pallas="never")
+HYBRID = FeatureConfig(precision="hybrid")
+EXACT = FeatureConfig(precision="exact")
 
 
 def test_hybrid_golden(small_batch):
@@ -146,11 +146,11 @@ def test_hybrid_std_correct_for_nondefault_levels(rng):
         from tpumcia.config import GLCMConfig
 
         cfg_h = FeatureConfig(
-            precision="hybrid", use_pallas="never",
+            precision="hybrid",
             glcm=GLCMConfig(levels=levels),
         )
         cfg_e = FeatureConfig(
-            precision="exact", use_pallas="never",
+            precision="exact",
             glcm=GLCMConfig(levels=levels),
         )
         got = extract_features(imgs, config=cfg_h)
@@ -174,10 +174,10 @@ def test_hybrid_levels_gt_256_exact_transport(rng):
     from tpumcia.config import GLCMConfig
 
     cfg_h = FeatureConfig(
-        precision="hybrid", use_pallas="never", glcm=GLCMConfig(levels=512)
+        precision="hybrid", glcm=GLCMConfig(levels=512)
     )
     cfg_e = FeatureConfig(
-        precision="exact", use_pallas="never", glcm=GLCMConfig(levels=512)
+        precision="exact", glcm=GLCMConfig(levels=512)
     )
     got = extract_features(imgs, config=cfg_h)
     ref = extract_features(imgs, config=cfg_e)
@@ -196,12 +196,12 @@ def test_constant_channel_nan_contract_all_backends():
     and the backends disagreed. All backends must now agree: NaN."""
     imgs = np.full((1, 10, 10, 1), 200, np.uint8)
     for precision in ("exact", "hybrid"):
-        cfg = FeatureConfig(precision=precision, use_pallas="never")
+        cfg = FeatureConfig(precision=precision)
         fm = extract_features(imgs, config=cfg)
         vals = dict(zip(fm.names, np.asarray(fm.values)[0]))
         assert np.isnan(vals["kurtosis_intensity_Ch1"]), (precision, vals)
         assert np.isnan(vals["skew_intensity_Ch1"]), (precision, vals)
-    cfg = FeatureConfig(precision="device", use_pallas="never")
+    cfg = FeatureConfig(precision="device")
     fm = extract_features(imgs, config=cfg)
     vals = dict(zip(fm.names, np.asarray(fm.to_numpy())[0]))
     assert np.isnan(vals["kurtosis_intensity_Ch1"]), vals
@@ -219,49 +219,3 @@ def test_finalize_hybrid_rejects_oversized_counts(rng):
     stats = sufficient_stats(imgs)
     with pytest.raises(ValueError, match="65536"):
         finalize_features(stats, backend="hybrid")
-
-
-def test_multi_wire_dstats_parity_with_diff_hist(rng):
-    """The multi-offset u32 wire must decode to identical GLCM values from
-    BOTH SuffStats flavours: the kernel's reduced ``dstats`` (interpret-mode
-    Pallas, need_diff_hist=False) and the XLA path's full ``diff_hist`` —
-    so the TPU fast path and the CPU fallback ship the same bits."""
-    from tpumcia.features.hybrid import (
-        _device_reduce_wire_multi,
-        assemble_reduced,
-        multi_wire_words,
-        unpack_wire_multi,
-    )
-    from tpumcia.features.pallas_glcm import sufficient_stats_pallas_multi
-    from tpumcia.features.stats import sufficient_stats_multi
-
-    img = (rng.random((2, 32, 32, 2)) * 256).astype(np.uint8)
-    offs = ((0, 5), (5, 0), (5, 5))
-    kstats = sufficient_stats_pallas_multi(
-        img, None, offsets=offs, interpret=True, need_diff_hist=False
-    )
-    xstats = sufficient_stats_multi(img, None, offsets=offs)
-    assert kstats[0].dstats is not None and kstats[0].diff_hist is None
-
-    wk = np.asarray(_device_reduce_wire_multi(tuple(kstats)))
-    wx = np.asarray(_device_reduce_wire_multi(tuple(xstats)))
-    assert wk.shape[-1] == multi_wire_words(3)
-    # integer words bit-equal; homog_sum is an f32 sum with a different
-    # reduction order in-kernel — compare decoded
-    dk = unpack_wire_multi(wk, 3)
-    dx = unpack_wire_multi(wx, 3)
-    for o in range(3):
-        for key in dk[o]:
-            if key == "homog_sum":
-                np.testing.assert_allclose(
-                    dk[o][key], dx[o][key], rtol=1e-6, err_msg=f"{o}:{key}"
-                )
-            else:
-                np.testing.assert_array_equal(
-                    dk[o][key], dx[o][key], err_msg=f"{o}:{key}"
-                )
-        fk = assemble_reduced(dk[o], include_intensity=o == 0)
-        fx = assemble_reduced(dx[o], include_intensity=o == 0)
-        np.testing.assert_allclose(
-            fk.values, fx.values, rtol=1e-6, atol=1e-9
-        )

@@ -122,7 +122,7 @@ def test_mdi_channel_importance_one_call(rng):
     from tpumcia.io.synthetic import synthetic_multichannel
 
     images, labels, _ = synthetic_multichannel(20, num_classes=3, seed=3)
-    fm = extract_features(images, config=FeatureConfig(use_pallas="never"))
+    fm = extract_features(images, config=FeatureConfig())
     X = np.nan_to_num(np.asarray(fm.values, dtype=np.float32))
     head = fit_head(X, labels, config=HeadConfig(kind="random_forest", n_estimators=30))
 
@@ -142,7 +142,7 @@ def test_end_to_end_channel_ranking(rng):
     from tpumcia.utils.split import train_test_split_indices
 
     images, labels, _ = synthetic_multichannel(30, num_classes=4, seed=5)
-    fm = extract_features(images, config=FeatureConfig(use_pallas="never"))
+    fm = extract_features(images, config=FeatureConfig())
     X = np.nan_to_num(np.asarray(fm.values, dtype=np.float32))
     split = train_test_split_indices(len(X), test_size=0.25, seed=0, stratify=labels)
 

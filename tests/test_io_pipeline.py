@@ -118,7 +118,7 @@ def test_h5_to_features_end_to_end(h5_objects):
     fm = extract_features(
         levels,
         mask=batch.masks,
-        config=FeatureConfig(use_pallas="never"),
+        config=FeatureConfig(),
         channel_names=batch.channels,
     )
     assert fm.shape == (6, 69)
@@ -194,7 +194,7 @@ def test_stream_extract_resume(tmp_path):
         calls.append(tuple(idx))
         return images[idx], None, labels[idx]
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     out = tmp_path / "features"
     res1 = stream_extract(fetch, len(images), out, shard_size=5, config=cfg)
     assert res1.shards_computed == 3 and res1.shards_skipped == 0
@@ -242,7 +242,7 @@ def test_stream_manifest_o1_appends_and_compaction(tmp_path, monkeypatch):
         lambda *a, **k: (saves.append(1), real_save(*a, **k)),
     )
     out = tmp_path / "f"
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     res = stream_extract(fetch, len(images), out, shard_size=5, config=cfg)
     assert res.shards_computed == 3
     assert len(saves) == 1  # compaction only — independent of shard count
@@ -272,7 +272,7 @@ def test_stream_resume_from_interrupted_jsonl_and_mixed_dirs(tmp_path):
             raise RuntimeError("simulated mid-run crash")
         return fetch(idx)
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     out = tmp_path / "f"
     with pytest.raises(RuntimeError, match="simulated"):
         stream_extract(
@@ -323,7 +323,7 @@ def test_stream_extract_device_staging_parity(tmp_path):
     def fetch(idx):
         return images[idx], None, labels[idx]
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     res_on = stream_extract(
         fetch, len(images), tmp_path / "on", shard_size=5, config=cfg
     )
@@ -345,7 +345,7 @@ def test_stream_extract_h5_directory(h5_objects, tmp_path):
     from tpumcia.pipeline.streaming import stream_extract_h5
 
     root, paths = h5_objects
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     out = tmp_path / "h5feats"
     res = stream_extract_h5(root, out, shard_size=4, config=cfg)
     assert res.shards_computed == 2
@@ -380,7 +380,7 @@ def test_stream_config_tag_guard(tmp_path):
 
     from tpumcia.config import FeatureConfig
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     stream_extract(fetch, 4, tmp_path / "f", shard_size=4, config=cfg, config_tag="a")
     with pytest.raises(ValueError, match="config_tag"):
         stream_extract(
@@ -395,7 +395,7 @@ def test_run_pipeline_smoke():
 
     images, labels, _ = synthetic_multichannel(12, num_classes=3, seed=4)
     cfg = PipelineConfig(
-        features=FeatureConfig(use_pallas="never"),
+        features=FeatureConfig(),
         head=HeadConfig(kind="logistic", num_steps=300),
         importance=ImportanceConfig(n_repeats=4),
     )
@@ -420,12 +420,12 @@ def test_size_parameters_validated_at_entries():
     for bs in (0, -4):
         with pytest.raises(ValueError, match="batch_size must be >= 1"):
             extract_features_batched(
-                images, batch_size=bs, config=FeatureConfig(use_pallas="never")
+                images, batch_size=bs, config=FeatureConfig()
             )
     with pytest.raises(ValueError, match="shard_size must be >= 1"):
         stream_extract(
             lambda idx: (images[idx], None, None), 4, "/tmp/unused",
-            shard_size=0, config=FeatureConfig(use_pallas="never"),
+            shard_size=0, config=FeatureConfig(),
         )
     with pytest.raises(ValueError, match="levels must be >= 1"):
         quantize_to_levels(np.zeros((2, 4, 4, 1), np.float32), levels=0)
@@ -441,7 +441,6 @@ def test_run_pipeline_channel_method_selectable():
 
     images, labels, _ = synthetic_multichannel(12, num_classes=3, seed=4)
     cfg = {
-        "features": {"use_pallas": "never"},
         "head": {"kind": "logistic", "num_steps": 300},
         "importance": {"n_repeats": 2, "channel_method": "ablation"},
     }
@@ -503,7 +502,7 @@ def test_stream_partial_final_shard_matches_direct(tmp_path):
     def fetch(idx):
         return images[idx], None, labels[idx]
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     res = stream_extract(
         fetch, len(images), tmp_path / "s", shard_size=5, config=cfg
     )
@@ -535,7 +534,7 @@ def test_stream_extract_explicit_process_split(tmp_path):
 
         return fetch
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     out = tmp_path / "split"
     # sequential driver: process 0 runs first, so it must opt out of the
     # all-shards barrier (its assembly is knowingly partial); process 1,
@@ -590,7 +589,7 @@ def test_stream_extract_explicit_split_barrier_raises_on_missing_shards(
     def fetch(idx):
         return images[idx], None, labels[idx]
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     with pytest.raises(RuntimeError, match="barrier timed out"):
         stream_extract(
             fetch, len(images), tmp_path / "lone", shard_size=4, config=cfg,
@@ -607,7 +606,7 @@ def test_load_feature_shards_carries_config_grouping(tmp_path):
     from tpumcia.features.extract import extract_features
 
     images, labels, _ = synthetic_multichannel(3, num_classes=2, seed=2)
-    cfg = FeatureConfig(use_pallas="never", glcm=GLCMConfig(distance=(1, 5)))
+    cfg = FeatureConfig(glcm=GLCMConfig(distance=(1, 5)))
 
     def fetch(idx):
         return images[idx], None, labels[idx]
@@ -636,7 +635,7 @@ def test_stream_extract_rejects_inconsistent_process_topology(tmp_path):
     def fetch(idx):
         return images[idx], None, labels[idx]
 
-    cfg = FeatureConfig(use_pallas="never")
+    cfg = FeatureConfig()
     with pytest.raises(ValueError, match="process_index"):
         stream_extract(
             fetch, len(images), tmp_path / "a", config=cfg, process_count=2
@@ -691,7 +690,7 @@ def test_h5_stream_channel_names_reach_feature_columns(h5_objects, tmp_path):
     paths, _tmp = h5_objects
     res = stream_extract_h5(
         paths, tmp_path / "feat", shard_size=4,
-        config=FeatureConfig(use_pallas="never"),
+        config=FeatureConfig(),
     )
     assert any("BF" in n for n in res.features.names), res.features.names[:3]
 

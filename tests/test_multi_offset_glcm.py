@@ -14,7 +14,6 @@ def test_multi_offset_names_and_values(rng):
     cfg = FeatureConfig(
         glcm=GLCMConfig(distance=(1, 5), angle=(0.0, np.pi / 2)),
         precision="exact",
-        use_pallas="never",
     )
     fm = extract_features(img, config=cfg)
     # 2 channels x (17 intensity + 6 glcm x 4 offsets)
@@ -35,7 +34,7 @@ def test_multi_offset_names_and_values(rng):
 def test_multi_offset_channel_grouping(rng):
     img = (rng.random((1, 16, 16, 3)) * 250 + 5).astype(np.uint8)
     cfg = FeatureConfig(
-        glcm=GLCMConfig(distance=(1, 2)), precision="exact", use_pallas="never"
+        glcm=GLCMConfig(distance=(1, 2)), precision="exact"
     )
     fm = extract_features(img, config=cfg)
     groups = fm.channel_columns()
@@ -52,7 +51,7 @@ def test_multi_offset_channel_grouping(rng):
 def test_single_offset_keeps_reference_names(small_batch):
     fm = extract_features(
         small_batch,
-        config=FeatureConfig(precision="exact", use_pallas="never"),
+        config=FeatureConfig(precision="exact"),
     )
     assert "contrast_Ch1" in fm.names  # no offset tag for the legacy config
     assert fm.shape[1] == 69
@@ -62,7 +61,7 @@ def test_custom_channel_names_group_positionally(rng):
     img = (rng.random((1, 16, 16, 2)) * 250 + 5).astype(np.uint8)
     fm = extract_features(
         img,
-        config=FeatureConfig(precision="exact", use_pallas="never"),
+        config=FeatureConfig(precision="exact"),
         channel_names=["BF", "GFP"],
     )
     assert fm.names[0] == "min_intensity_BF"
@@ -105,8 +104,7 @@ def test_extract_with_morphology(rng):
     img = (rng.random((3, 24, 24, 2)) * 250 + 5).astype(np.uint8)
     mask = np.zeros((3, 24, 24, 2), bool)
     mask[:, 4:20, 6:18, :] = True
-    cfg = FeatureConfig(include_morphology=True, precision="exact",
-                        use_pallas="never")
+    cfg = FeatureConfig(include_morphology=True, precision="exact")
     fm = extract_features(img, mask=mask, config=cfg)
     assert fm.shape == (3, 2 * (17 + 6 + 8))
     assert "area_Ch1" in fm.names and "eccentricity_Ch2" in fm.names
@@ -131,8 +129,8 @@ def test_multi_offset_hybrid_wire_one_fetch_matches_split(rng, monkeypatch):
     img = (rng.random((3, 20, 20, 2)) * 256).astype(np.uint8)
     mask = (rng.random((3, 20, 20)) > 0.2).astype(np.uint8)
     glcm = GLCMConfig(distance=(1, 5), angle=(0.0, np.pi / 2))
-    cfg_h = FeatureConfig(glcm=glcm, precision="hybrid", use_pallas="never")
-    cfg_e = FeatureConfig(glcm=glcm, precision="exact", use_pallas="never")
+    cfg_h = FeatureConfig(glcm=glcm, precision="hybrid")
+    cfg_e = FeatureConfig(glcm=glcm, precision="exact")
 
     fetches = []
     real_fetch = hybrid._fetch_concurrent

@@ -63,7 +63,7 @@ def test_twelve_channel_pipeline_with_donor_split(cytometry_dir):
     assert len(set(objs.donors)) == 6
 
     cfg = PipelineConfig(
-        features=FeatureConfig(use_pallas="never"),
+        features=FeatureConfig(),
         head=HeadConfig(kind="logistic", num_steps=300),
         importance=ImportanceConfig(n_repeats=4),
         split=SplitConfig(test_size=0.3, group_by="donor"),
@@ -121,7 +121,7 @@ def test_load_objects_with_2d_masks(tmp_path):
     res = analyze_objects(
         objs,
         config=PipelineConfig(
-            features=FeatureConfig(use_pallas="never"),
+            features=FeatureConfig(),
             head=HeadConfig(kind="logistic", num_steps=150),
             importance=ImportanceConfig(n_repeats=2),
             split=SplitConfig(test_size=0.25, seed=0),
@@ -147,7 +147,6 @@ def test_analyze_objects_accepts_dict_config(tmp_path):
     res = analyze_objects(
         objs,
         config={
-            "features": {"use_pallas": "never"},
             "head": {"kind": "logistic", "num_steps": 100},
             "importance": {"n_repeats": 2},
         },

@@ -29,7 +29,7 @@ def test_mesh_construction():
 def test_sharded_features_match_single_device(small_batch):
     mesh = make_mesh()
     fm_ref = extract_features(
-        small_batch, config=FeatureConfig(precision="exact", use_pallas="never")
+        small_batch, config=FeatureConfig(precision="exact")
     )
     fm_sh = extract_features_sharded(small_batch, mesh=mesh)
     np.testing.assert_array_equal(np.asarray(fm_sh.values), np.asarray(fm_ref.values))
@@ -39,7 +39,7 @@ def test_sharded_features_nondivisible_batch(small_batch):
     mesh = make_mesh()
     batch = small_batch[:5]  # 5 images over 8 devices -> padding path
     fm_ref = extract_features(
-        batch, config=FeatureConfig(precision="exact", use_pallas="never")
+        batch, config=FeatureConfig(precision="exact")
     )
     fm_sh = extract_features_sharded(batch, mesh=mesh)
     assert fm_sh.values.shape == fm_ref.values.shape
@@ -121,10 +121,10 @@ def test_stream_extract_with_mesh(tmp_path, rng):
     mesh = make_mesh()
     res = stream_extract(
         fetch, len(images), tmp_path / "mesh_stream", shard_size=4,
-        config=FeatureConfig(precision="exact", use_pallas="never"), mesh=mesh,
+        config=FeatureConfig(precision="exact"), mesh=mesh,
     )
     ref = extract_features(
-        images, config=FeatureConfig(precision="exact", use_pallas="never")
+        images, config=FeatureConfig(precision="exact")
     )
     np.testing.assert_array_equal(
         np.asarray(res.features.values), np.asarray(ref.values)

@@ -1,12 +1,12 @@
-"""tpumcia — TPU-native interpretable multichannel image analysis.
+"""tpumcia — interpretable multichannel image analysis on an accelerator.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 `aliechoes/interpretable-multichannel-image-analysis`: HDF5 cell-object
 ingestion, fused preprocessing, hand-crafted per-channel feature extraction
 (intensity statistics + GLCM texture), classifier heads (device logistic head,
 random-forest adapter, ResNet-style CNN), and batched channel-importance
-analysis (MDI, permutation, ablation, occlusion) — all designed for TPU
-device meshes rather than per-image Python loops.
+analysis (MDI, permutation, ablation, occlusion) — batched device
+computations over device meshes rather than per-image Python loops.
 
 Public workflow (mirrors the reference notebook):
 

@@ -91,9 +91,8 @@ class FeatureConfig:
     # images per vmapped chunk inside the jitted scan (memory/throughput knob)
     chunk_size: int = 32
     # dtype for the one-hot matmuls; bfloat16 is exact for 0/1 values and the
-    # f32 MXU accumulator keeps counts exact, at half the HBM footprint.
+    # f32 accumulator keeps counts exact, at half the memory footprint.
     onehot_dtype: str = "bfloat16"
-    use_pallas: str = "auto"  # 'auto' | 'always' | 'never'
 
 
 @dataclass(frozen=True)

@@ -103,8 +103,8 @@ def main(argv=None) -> int:
         help=(
             "initialize the multi-host JAX runtime before building the mesh "
             "(jax.distributed.initialize; coordinator/process topology from "
-            "TPU pod metadata or TPUMCIA_COORDINATOR / TPUMCIA_NUM_PROCESSES "
-            "/ TPUMCIA_PROCESS_ID — see launch_eval.sh)"
+            "TPUMCIA_COORDINATOR / TPUMCIA_NUM_PROCESSES / "
+            "TPUMCIA_PROCESS_ID — see launch_eval.sh)"
         ),
     )
     args = p.parse_args(argv)

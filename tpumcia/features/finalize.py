@@ -109,13 +109,16 @@ def _intensity_block(hist, count, xp, dtype):
     return feats  # (B, C, 17)
 
 
-def _glcm_block(marg_l, marg_r, diff_hist, sumsq, npairs, xp, dtype,
-                dstats=None):
+def _glcm_block(marg_l, marg_r, diff_hist, sumsq, npairs, xp, dtype):
     """GLCM sufficient stats -> (B, C, 6) [contrast, dissimilarity,
     homogeneity, ASM, energy, correlation], skimage ``graycoprops`` semantics
-    (ipynb:301-306). With ``dstats`` (kernel v4 fast path, ``diff_hist`` may
-    be None) the three difference-derived sums come pre-reduced from the
-    device instead of from the difference histogram."""
+    (ipynb:301-306).
+
+    The quadratic sums below are elementwise products summed with ``xp.sum``
+    rather than ``@``: on a GPU a float32 matmul may run in TF32, which keeps
+    10 mantissa bits, while ``i**2`` reaches 65,025 (16 significant bits).
+    In float64 on the host the products are exact integers, so the sums are
+    exact in any order."""
     L = marg_l.shape[-1]
     i = xp.arange(L).astype(dtype)
     i2 = i * i
@@ -127,21 +130,14 @@ def _glcm_block(marg_l, marg_r, diff_hist, sumsq, npairs, xp, dtype,
     Pl = ml / safe_N[..., None]
     Pr = mr / safe_N[..., None]
 
-    if dstats is not None:
-        ds = dstats.astype(dtype)
-        s_d2 = 256.0 * ds[..., 0] + ds[..., 1]
-        contrast = s_d2 / safe_N
-        dissimilarity = ds[..., 2] / safe_N
-        homogeneity = ds[..., 3] / safe_N
-    else:
-        d = xp.arange(2 * L - 1).astype(dtype) - (L - 1)
-        d2 = d * d
-        dh = diff_hist.astype(dtype)
-        Pd = dh / safe_N[..., None]  # (B, C, 2L-1)
-        contrast = xp.sum(Pd * d2, axis=-1)
-        dissimilarity = xp.sum(Pd * xp.abs(d), axis=-1)
-        homogeneity = xp.sum(Pd / (1.0 + d2), axis=-1)
-        s_d2 = dh @ d2
+    d = xp.arange(2 * L - 1).astype(dtype) - (L - 1)
+    d2 = d * d
+    dh = diff_hist.astype(dtype)
+    Pd = dh / safe_N[..., None]  # (B, C, 2L-1)
+    contrast = xp.sum(Pd * d2, axis=-1)
+    dissimilarity = xp.sum(Pd * xp.abs(d), axis=-1)
+    homogeneity = xp.sum(Pd / (1.0 + d2), axis=-1)
+    s_d2 = xp.sum(dh * d2, axis=-1)
     asm = glcm_sumsq_value(sumsq, xp, dtype) / (safe_N * safe_N)
     energy = xp.sqrt(asm)
 
@@ -154,8 +150,8 @@ def _glcm_block(marg_l, marg_r, diff_hist, sumsq, npairs, xp, dtype,
     std_i, std_j = xp.sqrt(var_i), xp.sqrt(var_j)
     # sum_ij Cij * i*j, exactly, from the three (integer) histograms:
     # 2*S_ij = S_i2 + S_j2 - S_d2  since (i-j)^2 = i^2 + j^2 - 2ij.
-    s_i2 = ml @ i2
-    s_j2 = mr @ i2
+    s_i2 = xp.sum(ml * i2, axis=-1)
+    s_j2 = xp.sum(mr * i2, axis=-1)
     s_ij = (s_i2 + s_j2 - s_d2) / 2
     cov = s_ij / safe_N - mu_i * mu_j
     denom = std_i * std_j
@@ -176,8 +172,8 @@ def _pack_for_transfer(stats: SuffStats) -> SuffStats:
     """Cast the integer-valued count histograms to the narrowest lossless
     dtype on device before the device->host fetch. Histogram bins are bounded
     by the per-channel pixel/pair count, so uint16 is lossless whenever the
-    images have < 65536 pixels — half the transfer bytes on the
-    latency-bound D2H path."""
+    images have < 65536 pixels — half the transfer bytes on the D2H
+    path."""
     if not isinstance(stats.hist, jax.Array):
         return stats
     # one tiny scalar sync decides the packing dtype
@@ -194,10 +190,9 @@ def _pack_jit(s: SuffStats, *, narrow: str) -> SuffStats:
         vmax=s.vmax,
         marg_l=s.marg_l.astype(nd),
         marg_r=s.marg_r.astype(nd),
-        diff_hist=None if s.diff_hist is None else s.diff_hist.astype(nd),
+        diff_hist=s.diff_hist.astype(nd),
         glcm_sumsq=s.glcm_sumsq,  # exact int32 limbs, not u16-representable
         pair_count=s.pair_count.astype(jnp.int32),
-        dstats=s.dstats,  # f32 already (exact integers + one f32 sum)
     )
 
 
@@ -230,12 +225,10 @@ def finalize_features(
         ]
         if glb:
             # cross-process stats: replicate ALL of them in one dispatch
-            # (per-field allgathers would each pay a full link round trip)
+            # instead of one allgather per field
             for i, g in zip(glb, _replicate_leaves([vals[i] for i in glb])):
                 vals[i] = g
-        stats = SuffStats(
-            *(None if s is None else np.asarray(s) for s in vals)
-        )
+        stats = SuffStats(*(np.asarray(s) for s in vals))
         xp, dtype = np, np.float64
         return _finalize(stats, xp, dtype, include_intensity, include_glcm)
     if backend == "hybrid":
@@ -253,8 +246,7 @@ def finalize_features(
 def _replicate_jit(sharding):
     """Stable-identity jitted replicate-identity, cached per sharding: a
     fresh ``jax.jit`` closure per call would re-trace on every multi-host
-    host-fetch — the per-call-closure cost the dev notes flag as dominant
-    on this throttled host (retrace >> device compute)."""
+    host-fetch."""
     return jax.jit(lambda *xs: xs, out_shardings=sharding)
 
 
@@ -300,7 +292,6 @@ def _finalize(stats, xp, dtype, include_intensity, include_glcm):
             stats.pair_count,
             xp,
             dtype,
-            dstats=stats.dstats,
         )
         blocks.append(glcm.reshape(B, -1))
     values = xp.concatenate(blocks, axis=1)

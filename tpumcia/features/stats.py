@@ -1,7 +1,6 @@
 """Device-side sufficient statistics for the hand-crafted feature set.
 
-TPU-first design (SURVEY.md §3.1 "TPU mapping"): instead of translating the
-reference's ~20 per-channel numpy passes + Cython GLCM scatter
+Instead of translating the reference's ~20 per-channel numpy passes + Cython GLCM scatter
 (ipynb:220-311), each (image, channel) is reduced **on device, in one jitted
 pass** to a small set of *integer-valued* sufficient statistics:
 
@@ -15,13 +14,13 @@ Every statistic is an exactly-representable integer in float32 (counts and
 count-weighted integer sums stay < 2^24 for the supported image sizes), so the
 float64 host finalisation in ``finalize.py`` reproduces the reference's
 numpy/scipy float64 arithmetic to ~1e-9 — far inside the 1e-5 MAE target —
-while all pixel-touching work runs on the MXU/VPU.
+while all pixel-touching work runs on the accelerator.
 
 Histograms and co-occurrence counts are computed as one-hot contractions
-(`einsum`) so XLA tiles them onto the MXU; the scatter-style GLCM loop the
-reference delegates to Cython (`skimage _glcm_loop`, ipynb:298) has no
-efficient TPU equivalent. A fused Pallas kernel with the same contract lives
-in ``pallas_glcm.py``.
+(`einsum`) so XLA lowers them to matrix products with bf16 0/1 operands and
+f32 accumulation (exact at any matmul precision), in place of the
+scatter-style GLCM loop the reference delegates to Cython
+(`skimage _glcm_loop`, ipynb:298).
 """
 
 from __future__ import annotations
@@ -42,23 +41,12 @@ class SuffStats(NamedTuple):
     vmax: jax.Array  # (B, C) i32   max raw level over masked pixels; -1 if none
     marg_l: jax.Array  # (B, C, L)    GLCM left-pixel marginal (rescaled levels)
     marg_r: jax.Array  # (B, C, L)    GLCM right-pixel marginal
-    diff_hist: jax.Array | None  # (B, C, 2L-1) histogram of (left - right)
-    #                        + (L-1). None on the reduced fast path, where the
-    #                        only quantities the finalisers derive from it are
-    #                        carried by ``dstats`` instead (kernel v4).
+    diff_hist: jax.Array  # (B, C, 2L-1) histogram of (left - right) + (L-1)
     glcm_sumsq: jax.Array  # (B, C, 4) i32 limbs of sum(count^2); see
     #                        glcm_sumsq_value — exact for pair counts < 2^24
     #                        (a raw f32 sum of squares loses integer exactness
     #                        once any co-occurrence cell exceeds 4096)
     pair_count: jax.Array  # (B, C)       number of valid (masked) pixel pairs
-    dstats: jax.Array | None = None  # (B, C, 4) f32 weight-plane reductions of
-    #                        the co-occurrence matrix G, emitted straight from
-    #                        the kernel's VMEM accumulator when diff_hist is
-    #                        dropped: [sum(G*((i-j)^2 >> 8)),
-    #                        sum(G*((i-j)^2 & 255)), sum(G*|i-j|),
-    #                        sum(G/(1+(i-j)^2))]. The first three are exact
-    #                        integers < 2^24 (so exact in f32); the last is an
-    #                        f32 sum. s_d2 = 256*w0 + w1 (exact < 2^32).
 
 
 @functools.lru_cache(maxsize=8)
@@ -87,7 +75,7 @@ def rescale_lut(levels: int = 256) -> np.ndarray:
 @functools.lru_cache(maxsize=8)
 def rescale_lut_device(levels: int = 256):
     """Device-resident copy of :func:`rescale_lut` (cached — repeated
-    pipeline calls must not re-upload the 256 KB table through the link)."""
+    pipeline calls must not re-upload the 256 KB table)."""
     return jnp.asarray(rescale_lut(levels))
 
 
@@ -101,13 +89,11 @@ def _glcm_sumsq_limbs(glcm_i32, reduce_axes, cheap=False):
     sum(b^2&255) <= 255*L^2), so the int32 sums — and the float64 host
     reassembly in :func:`glcm_sumsq_value` — are exact.
 
-    ``cheap`` (kernel v7, callers gate on H*W <= 4096 and levels <= 256):
-    pair counts <= 2^12 make ``sum(G^2) <= sum(G)^2 <= 2^24`` exact in one
-    i32 pass, emitted as the two low limbs with the hi limbs zero. The limb
-    VALUES differ from the generic encoding but reassemble identically
-    under :func:`glcm_sumsq_value`'s fixed 2^24/2^13/2^8/1 weights; the
-    Pallas kernel switches encodings on the same gate
-    (pallas_glcm._emit_glcm_tail), keeping kernel-vs-XLA parity bit-exact.
+    ``cheap`` (callers gate on H*W <= 4096 and levels <= 256): pair counts
+    <= 2^12 make ``sum(G^2) <= sum(G)^2 <= 2^24`` exact in one i32 pass,
+    emitted as the two low limbs with the hi limbs zero. The limb VALUES
+    differ from the generic encoding but reassemble identically under
+    :func:`glcm_sumsq_value`'s fixed 2^24/2^13/2^8/1 weights.
     """
     if cheap:
         s2 = jnp.sum(glcm_i32 * glcm_i32, axis=reduce_axes)
@@ -185,7 +171,7 @@ def _single_image_stats(
         )
 
     # --- GLCM rescale: raw level -> reference uint8 level, via LUT row of the
-    # channel max, applied with the already-built one-hot (an MXU matvec).
+    # channel max, applied with the already-built one-hot (a matvec).
     # HIGHEST precision: the LUT/row values reach L-1, which is NOT
     # bf16-representable above 256 — DEFAULT matmul precision would
     # silently truncate rescaled levels for levels > 256 configs
@@ -239,12 +225,13 @@ def _glcm_offset_stats(resc, weight, offset, L, onehot_dtype):
         "cpl,cp->cl", _one_hot(diff, 2 * L - 1, onehot_dtype), pw,
         preferred_element_type=f32,
     )
-    # Full co-occurrence matrix on the MXU; only its sum of squares leaves the
-    # op (needed for ASM/energy — the one prop not derivable from marginals).
+    # Full co-occurrence matrix as one matmul; only its sum of squares leaves
+    # the op (needed for ASM/energy — the one prop not derivable from
+    # marginals).
     glcm = jnp.einsum("cpi,cpj->cij", oh_l, oh_r, preferred_element_type=f32)
     glcm_sumsq = _glcm_sumsq_limbs(
         glcm.astype(jnp.int32), reduce_axes=(1, 2),
-        cheap=H * W <= 4096 and L <= 256,  # same gate as the Pallas kernel
+        cheap=H * W <= 4096 and L <= 256,
     )
     pair_count = jnp.sum(pw.astype(f32), axis=1)
     return marg_l, marg_r, diff_hist, glcm_sumsq, pair_count
@@ -529,8 +516,7 @@ def glcm_matrix(
 )
 def _glcm_matrix_jit(img, w, lut, *, levels, offsets, symmetric, normed):
     """Module-level jit (stable identity): a per-call closure would
-    re-trace the whole one-hot/einsum graph on every glcm_matrix call —
-    retraces on this throttled host cost 30-250x the device compute."""
+    re-trace the whole one-hot/einsum graph on every glcm_matrix call."""
     def one(img1, w1):
         C, H, W = img1.shape
         f32 = jnp.float32

@@ -1,6 +1,6 @@
 """Occlusion and pixel-space channel importance for the CNN path.
 
-BASELINE.json config 3: "occlusion/permutation channel importance on TPU".
+BASELINE.json config 3: occlusion/permutation channel importance.
 Three probes over a trained image classifier:
 
 * ``channel_occlusion_importance`` — zero out one channel entirely; accuracy
@@ -60,8 +60,8 @@ def _replicate_for(head, *arrays):
             # data and re-wrap (same stream) as a global op
             data = jax.device_put(np.asarray(jax.random.key_data(a)), rep)
             return jax.random.wrap_key_data(data)
-        # bulk inputs (image batches) replicate device-to-device — a host
-        # round trip would drag them through the slow link twice
+        # bulk inputs (image batches) replicate device-to-device instead of
+        # a host round trip
         return _replicate_over_mesh(a, mesh)
 
     return tuple(put(a) for a in arrays)

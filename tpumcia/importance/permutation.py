@@ -68,6 +68,9 @@ class PermutationResult:
 
 
 def _scaled_logistic_apply(params, dmin, dscale, X):
+    # DEFAULT matmul precision (TF32 on a GPU): the sweep compares argmax
+    # accuracies, and chip_smoke.py checks the resulting channel ranking
+    # against a HIGHEST-precision run
     return (X - dmin) * dscale @ params["w"] + params["b"]
 
 

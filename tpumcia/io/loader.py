@@ -1,7 +1,7 @@
 """Host-side prefetching batch loader.
 
 Feeds device computations from a (possibly lazy) host data source with a
-background thread pool: while the TPU processes batch i, batch i+1 is being
+background thread pool: while the device processes batch i, batch i+1 is being
 decoded/assembled on host — replacing the reference's fully sequential
 read-one-extract-one loop (ipynb:358-364).
 """

@@ -1,7 +1,7 @@
 """ctypes bindings for the native host-side packer (native/packer.cpp).
 
 The library is built on first use with g++ (-O3 -shared) into
-``native/libtpumcia_packer.so``; all entry points have pure-numpy fallbacks,
+``native/libmcia_packer.so``; all entry points have pure-numpy fallbacks,
 so the framework works without a toolchain.
 """
 
@@ -15,7 +15,7 @@ from pathlib import Path
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
-_SO_PATH = _NATIVE_DIR / "libtpumcia_packer.so"
+_SO_PATH = _NATIVE_DIR / "libmcia_packer.so"
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -102,7 +102,7 @@ def pack_objects(
 
     # PURE-numpy fallback: the jax center_crop_or_pad would issue one
     # device dispatch (and a fresh compile) per unique (h, w) object shape
-    # through the link — a host-side pack must never touch the backend
+    # — a host-side pack must never touch the backend
     for i, a in enumerate(arrays):
         h, w = a.shape[0], a.shape[1]
         # centered crop (same floor-division offsets as the C++ kernel and

@@ -1,12 +1,12 @@
 """ResNet-18-style CNN classifier with a C-channel input stem.
 
 BASELINE.json config 3: "Small CNN (ResNet-18-style, C-channel input conv)
-classifier + occlusion/permutation channel importance on TPU". The reference
+classifier + occlusion/permutation channel importance". The reference
 has no CNN (hand-crafted features + RF only); this is the framework's learned
 -feature path for multichannel cell images.
 
-TPU-first choices:
-* bfloat16 compute / float32 params (MXU-native mixed precision)
+Design choices:
+* bfloat16 compute / float32 params (tensor-core mixed precision)
 * GroupNorm instead of BatchNorm — no cross-device batch statistics, so the
   train step shards over the ``data`` mesh axis without extra collectives
   beyond the gradient psum

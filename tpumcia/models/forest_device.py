@@ -1,8 +1,8 @@
 """Device-resident random-forest inference.
 
 Tree *fitting* stays on host (sklearn, Cython — building trees does not map
-to the MXU), but a fitted forest compiles into dense arrays so *inference*
-runs on TPU. This is what lets the permutation importance sweep over a
+to matrix units), but a fitted forest compiles into dense arrays so
+*inference* runs on the device. This is what lets the permutation importance sweep over a
 RandomForest head run as a single batched device computation instead of the
 reference's per-feature joblib fan-out (ipynb:495-496).
 
@@ -14,8 +14,8 @@ Two formulations:
   Hummingbird). Leaf ``l`` is reached iff
   ``sum_(i on path) [left-branch ? cmp_i : 1-cmp_i] == path_len_l``, i.e.
   ``A_l . cmp == target_l`` with ``A`` in {-1, 0, +1}. All the per-sample
-  work is MXU contractions (bf16 products, exact f32 accumulation) instead
-  of serial gathers — ~10x faster on TPU for typical forests.
+  work is matrix contractions (bf16 products, exact f32 accumulation)
+  instead of serial gathers.
 * **Lock-step descent** (fallback for deep/huge trees, where the padded
   (leaves x nodes) path matrix would blow up): every (sample, tree) pair
   descends in lock-step inside one jitted ``fori_loop`` of gathers. Trees
@@ -138,8 +138,8 @@ def _forest_proba_gemm_impl(X, g_feature, g_threshold, A, target, g_leaf_proba):
             "stn,tln->tsl", cmp, a.astype(f32), preferred_element_type=f32,
         )
         reached = (s.astype(jnp.int32) == tgt[:, None, :]).astype(f32)
-        # HIGHEST: leaf probabilities are arbitrary f32 fractions —
-        # DEFAULT MXU precision would truncate them to 8 mantissa bits
+        # HIGHEST: leaf probabilities are arbitrary f32 fractions — DEFAULT
+        # precision may round them (bf16 or TF32 operands)
         return jnp.einsum(
             "tsl,tlk->sk", reached, lp, preferred_element_type=f32,
             precision=jax.lax.Precision.HIGHEST,
@@ -288,8 +288,8 @@ class DeviceForest:
         return self.scaler.transform(X) if self.scaler is not None else X
 
     def predict_proba(self, X) -> jax.Array:
-        # one jitted dispatch (the eager graph was a dispatch storm through
-        # the remote link: pad/reshape/map/sum each enqueued separately)
+        # one jitted dispatch (the eager graph enqueued pad/reshape/map/sum
+        # as separate dispatches)
         return _forest_apply_jit(self.apply_fn(), self._prep(X))
 
     def predict(self, X) -> np.ndarray:

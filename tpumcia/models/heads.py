@@ -3,14 +3,14 @@
 Two head families per BASELINE.json config 2:
 
 * :class:`LogisticHead` — a device-resident multinomial logistic regression
-  trained with optax under one jitted ``lax.fori_loop``. Fully TPU-native:
+  trained with optax under one jitted ``lax.fori_loop``. Fully on device:
   its scoring path composes with vmap/pjit, which is what makes the batched
   permutation-importance sweep a single device computation
   (``importance/permutation.py``) instead of the reference's joblib process
   pool (ipynb:495-496).
 * :class:`RandomForestHead` — an adapter over sklearn's
   ``RandomForestClassifier`` (the reference's head, ipynb:404, but seeded).
-  Tree *building* does not map to TPU (SURVEY.md §7 "hard parts"); inference
+  Tree *building* stays on the host (SURVEY.md §7 "hard parts"); inference
   can still run on device via ``models.forest_device``.
 
 ``fit_head`` is the public entry point, mirroring notebook cells 19-20
@@ -42,6 +42,9 @@ def _fit_logistic(X, y_onehot, w0, b0, *, num_steps: int, lr: float, l2: float):
     opt = optax.adam(lr)
 
     def loss_fn(params):
+        # DEFAULT matmul precision (TF32 on a GPU): the fit is iterative and
+        # approximate anyway; chip_smoke.py checks the rankings it yields
+        # against a HIGHEST-precision run
         logits = X @ params["w"] + params["b"]
         ce = optax.softmax_cross_entropy(logits, y_onehot).mean()
         reg = l2 * jnp.sum(params["w"] ** 2)
@@ -61,7 +64,8 @@ def _fit_logistic(X, y_onehot, w0, b0, *, num_steps: int, lr: float, l2: float):
 
 
 def logistic_predict_logits(params, X):
-    """Pure scoring function — composes with jit/vmap/pjit."""
+    """Pure scoring function — composes with jit/vmap/pjit. DEFAULT matmul
+    precision (TF32 on a GPU), like the fit: only the argmax is used."""
     return jnp.asarray(X) @ params["w"] + params["b"]
 
 
@@ -186,7 +190,8 @@ class LogisticHead:
 
 
 def mlp_predict_logits(params, X):
-    """Pure scoring for the MLP head: dense->relu stack + linear readout."""
+    """Pure scoring for the MLP head: dense->relu stack + linear readout, at
+    DEFAULT matmul precision (TF32 on a GPU) like the logistic head."""
     h = jnp.asarray(X)
     for layer in params["hidden"]:
         h = jax.nn.relu(h @ layer["w"] + layer["b"])
@@ -394,7 +399,7 @@ class RandomForestHead:
         )
 
     def to_device(self):
-        """Compile the fitted forest into device arrays for TPU inference."""
+        """Compile the fitted forest into device arrays for device inference."""
         from tpumcia.models.forest_device import DeviceForest
 
         return DeviceForest.from_sklearn(self.model, self.classes, self.scaler)

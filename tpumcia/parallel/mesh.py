@@ -2,7 +2,9 @@
 
 The canonical mesh has a ``data`` axis (objects are embarrassingly parallel —
 SURVEY.md §2.4) and an optional ``model`` axis reserved for the CNN path's
-parameter sharding. On a v5e-8 the default is (data=8, model=1); tests use a
+parameter sharding. The mesh follows the algorithm only — a flat (data,
+model) grid over ``jax.devices()``, no torus or topology mapping: on four
+NVLink-connected GPUs the default is (data=4, model=1); tests use a
 CPU-simulated 8-device mesh.
 """
 

@@ -1,14 +1,15 @@
 """Multi-device (SPMD) execution of the feature/importance pipeline.
 
 The reference's only concurrency is a joblib process pool inside
-``permutation_importance`` (ipynb:495-496). Here the TPU-native equivalents:
+``permutation_importance`` (ipynb:495-496). Here the multi-device
+equivalents:
 
 * ``extract_features_sharded`` — objects sharded over the ``data`` mesh axis
   with ``shard_map``; each device reduces its local shard with the same
   sufficient-statistics kernel, no cross-device traffic (embarrassingly
   parallel per SURVEY.md §2.4).
 * ``fit_scaler_sharded`` — per-shard min/max combined with
-  ``lax.pmin/pmax`` over ICI — the psum-style global reduction the
+  ``lax.pmin/pmax`` across devices — the psum-style global reduction the
   MinMaxScaler needs (SURVEY.md §5 "distributed communication").
 * ``permutation_importance_sharded`` — the (group, repeat) sweep sharded
   over devices: X replicated, group masks split over ``data``.
@@ -38,7 +39,7 @@ def _lut_for_mesh(levels: int, mesh: Mesh):
     device — fine single-process, but a jit over a cross-process mesh
     rejects inputs committed to a device subset, so multi-host extraction
     needs the replicated placement (and the cache keeps the 256 KB table
-    from re-crossing the link every call)."""
+    from being re-uploaded every call)."""
     from jax.sharding import NamedSharding
 
     return jax.device_put(rescale_lut(levels), NamedSharding(mesh, P()))
@@ -49,7 +50,7 @@ def local_to_global(arr, sharding):
     into a global array with the given (cross-process) sharding by handing
     each local device its shard directly — ``device_put`` to a
     cross-process sharding is rejected for committed arrays, and a host
-    round trip would drag the bulk data through the slow link twice."""
+    round trip would copy the bulk data twice."""
     shards = [
         jax.device_put(arr[idx], d)
         for d, idx in sharding.addressable_devices_indices_map(
@@ -72,7 +73,7 @@ def _place_raw_over_mesh(arr, mesh, n_data: int):
     a global array row-sharded over the (possibly cross-process) mesh.
     Returns ``(global_padded, orig_b)``. Images and masks are placed
     independently, so any mix of host / local-device / already-global
-    inputs works. The RAW dtype crosses the link (1 B/px uint8, not the
+    inputs works. The RAW dtype is uploaded (1 B/px uint8, not the
     4 B/px int32 the prep produces) and the transpose/cast prep runs
     afterwards as sharded device ops."""
     from jax.sharding import NamedSharding
@@ -97,8 +98,8 @@ def _place_raw_over_mesh(arr, mesh, n_data: int):
 def place_global(arr, sharding):
     """Host / committed-local / already-global input -> a global array with
     ``sharding``. Device inputs are copied device-to-device (no host round
-    trip through the slow link); already-global arrays pass through
-    untouched (the consuming jit reshards if needed)."""
+    trip); already-global arrays pass through untouched (the consuming jit
+    reshards if needed)."""
     if isinstance(arr, jax.Array) and not arr.is_fully_addressable:
         return arr
     if isinstance(arr, jax.Array):
@@ -144,58 +145,46 @@ def _pad_to_multiple(arr, m: int):
 
 
 def _trim_stats(stats: SuffStats, orig_b: int) -> SuffStats:
-    return SuffStats(*(None if s is None else s[:orig_b] for s in stats))
+    return SuffStats(*(s[:orig_b] for s in stats))
 
 
 def _data_out_specs(local, example_args):
-    """Out-specs matching the local function's actual output pytree (fields
-    may be None on the reduced fast path), every array sharded over 'data'."""
+    """Out-specs matching the local function's output pytree, every array
+    sharded over 'data'."""
     shapes = jax.eval_shape(local, *example_args)
     return jax.tree.map(lambda _: P("data"), shapes)
 
 
 @functools.lru_cache(maxsize=64)
 def _sharded_stats_fn(
-    mesh, levels, offset, chunk_size, onehot_dtype, pallas,
-    with_intensity, with_glcm, has_mask, need_diff, shapes,
+    mesh, levels, offset, chunk_size, onehot_dtype, with_intensity,
+    with_glcm, has_mask, shapes,
 ):
     """Jitted (img[, w], lut) -> sharded SuffStats, cached per (mesh, config)
     so repeated calls reuse one trace (a per-call shard_map closure would
-    retrace every time — expensive on a slow host). With ``has_mask=False``
-    the weight array is never materialised: the Pallas branch uses the
-    maskless kernel specialisation, the XLA branch broadcasts ones inside
-    the jit (fused, never an HBM array)."""
-    if pallas:
-        from tpumcia.features.pallas_glcm import _pallas_stats_core
+    retrace every time). With ``has_mask=False`` the weight array is never
+    materialised: ones are broadcast inside the jit (fused, never an HBM
+    array)."""
 
-        def local(img_l, *rest):
-            w_l, lut = (rest[0], rest[1]) if has_mask else (None, rest[0])
-            return _pallas_stats_core(
-                img_l, w_l, lut, levels=levels, offset=offset,
-                has_mask=has_mask, interpret=False, need_diff=need_diff,
-            )
-
-    else:
-
-        def local(img_l, *rest):
-            if has_mask:
-                w_l, lut = rest
-            else:
-                (lut,) = rest
-                w_l = jnp.ones(img_l.shape, jnp.float32)
-            one = functools.partial(
-                _single_image_stats,
-                lut=lut,
-                levels=levels,
-                offset=offset,
-                onehot_dtype=jnp.dtype(onehot_dtype),
-                with_intensity=with_intensity,
-                with_glcm=with_glcm,
-            )
-            bs = min(chunk_size, img_l.shape[0])
-            return jax.lax.map(
-                lambda xw: one(xw[0], xw[1]), (img_l, w_l), batch_size=bs
-            )
+    def local(img_l, *rest):
+        if has_mask:
+            w_l, lut = rest
+        else:
+            (lut,) = rest
+            w_l = jnp.ones(img_l.shape, jnp.float32)
+        one = functools.partial(
+            _single_image_stats,
+            lut=lut,
+            levels=levels,
+            offset=offset,
+            onehot_dtype=jnp.dtype(onehot_dtype),
+            with_intensity=with_intensity,
+            with_glcm=with_glcm,
+        )
+        bs = min(chunk_size, img_l.shape[0])
+        return jax.lax.map(
+            lambda xw: one(xw[0], xw[1]), (img_l, w_l), batch_size=bs
+        )
 
     n_in = 2 if has_mask else 1
     example = [jax.ShapeDtypeStruct(s, d) for s, d in shapes]
@@ -204,8 +193,6 @@ def _sharded_stats_fn(
         mesh=mesh,
         in_specs=tuple([P("data")] * n_in + [P()]),
         out_specs=_data_out_specs(local, example),
-        # pallas_call's out_shape structs carry no vma annotation
-        check_vma=not pallas,
     )
     return jax.jit(fn)
 
@@ -219,21 +206,11 @@ def sufficient_stats_sharded(
     offset: tuple[int, int] = (0, 5),
     chunk_size: int = 32,
     onehot_dtype: str = "bfloat16",
-    use_pallas: str = "auto",
     with_intensity: bool = True,
     with_glcm: bool = True,
-    need_diff_hist: bool = True,
 ) -> SuffStats:
     """Per-(image, channel) sufficient statistics with the batch sharded over
-    the mesh's ``data`` axis. Output stats stay sharded the same way.
-    On TPU meshes each device runs the fused Pallas kernel on its local
-    shard (``use_pallas='auto'``); CPU meshes use the XLA path.
-
-    ``need_diff_hist=False`` selects the v4 fast-kernel contract (Pallas
-    meshes only — the XLA path always carries the full difference histogram,
-    so the flag is ignored there)."""
-    on_tpu = mesh.devices.flatten()[0].platform == "tpu"
-    pallas = use_pallas == "always" or (use_pallas == "auto" and on_tpu)
+    the mesh's ``data`` axis. Output stats stay sharded the same way."""
     has_mask = mask is not None
     n_data = mesh.shape["data"]
 
@@ -259,45 +236,33 @@ def sufficient_stats_sharded(
     args = (img, w, lut) if has_mask else (img, lut)
     shapes = tuple((tuple(a.shape), jnp.dtype(a.dtype).name) for a in args)
     fn = _sharded_stats_fn(
-        mesh, levels, tuple(offset), chunk_size, onehot_dtype, pallas,
-        with_intensity, with_glcm, has_mask,
-        need_diff_hist if pallas else True, shapes,
+        mesh, levels, tuple(offset), chunk_size, onehot_dtype,
+        with_intensity, with_glcm, has_mask, shapes,
     )
     return _trim_stats(fn(*args), orig_b)
 
 
 @functools.lru_cache(maxsize=64)
 def _sharded_stats_multi_fn(
-    mesh, levels, offsets, chunk_size, onehot_dtype, pallas, with_intensity,
-    has_mask, need_diff, shapes,
+    mesh, levels, offsets, chunk_size, onehot_dtype, with_intensity,
+    has_mask, shapes,
 ):
     """Jitted (img[, w], lut) -> per-offset sharded SuffStats tuple — the
     multi-offset sibling of :func:`_sharded_stats_fn` (one fused local pass
     per device sharing the raw/histogram/rescale work across offsets)."""
-    if pallas:
-        from tpumcia.features.pallas_glcm import _pallas_stats_multi_core
+    from tpumcia.features.stats import _sufficient_stats_multi_jit
 
-        def local(img_l, *rest):
-            w_l, lut = (rest[0], rest[1]) if has_mask else (None, rest[0])
-            return _pallas_stats_multi_core(
-                img_l, w_l, lut, levels=levels, offsets=offsets,
-                has_mask=has_mask, interpret=False, need_diff=need_diff,
-            )
-
-    else:
-        from tpumcia.features.stats import _sufficient_stats_multi_jit
-
-        def local(img_l, *rest):
-            if has_mask:
-                w_l, lut = rest
-            else:
-                (lut,) = rest
-                w_l = jnp.ones(img_l.shape, jnp.float32)
-            return _sufficient_stats_multi_jit(
-                img_l, w_l, lut, levels=levels, offsets=offsets,
-                chunk_size=chunk_size, onehot_dtype=onehot_dtype,
-                with_intensity=with_intensity,
-            )
+    def local(img_l, *rest):
+        if has_mask:
+            w_l, lut = rest
+        else:
+            (lut,) = rest
+            w_l = jnp.ones(img_l.shape, jnp.float32)
+        return _sufficient_stats_multi_jit(
+            img_l, w_l, lut, levels=levels, offsets=offsets,
+            chunk_size=chunk_size, onehot_dtype=onehot_dtype,
+            with_intensity=with_intensity,
+        )
 
     n_in = 2 if has_mask else 1
     example = [jax.ShapeDtypeStruct(s, d) for s, d in shapes]
@@ -306,7 +271,6 @@ def _sharded_stats_multi_fn(
         mesh=mesh,
         in_specs=tuple([P("data")] * n_in + [P()]),
         out_specs=_data_out_specs(local, example),
-        check_vma=not pallas,
     )
     return jax.jit(fn)
 
@@ -320,14 +284,10 @@ def sufficient_stats_sharded_multi(
     offsets: tuple[tuple[int, int], ...] = ((0, 5),),
     chunk_size: int = 32,
     onehot_dtype: str = "bfloat16",
-    use_pallas: str = "auto",
     with_intensity: bool = True,
-    need_diff_hist: bool = True,
 ) -> tuple[SuffStats, ...]:
     """Fused multi-offset sufficient statistics, batch sharded over the
     mesh's ``data`` axis (skimage list API x SPMD)."""
-    on_tpu = mesh.devices.flatten()[0].platform == "tpu"
-    pallas = use_pallas == "always" or (use_pallas == "auto" and on_tpu)
     has_mask = mask is not None
     n_data = mesh.shape["data"]
 
@@ -354,8 +314,7 @@ def sufficient_stats_sharded_multi(
     shapes = tuple((tuple(a.shape), jnp.dtype(a.dtype).name) for a in args)
     fn = _sharded_stats_multi_fn(
         mesh, levels, tuple(tuple(o) for o in offsets), chunk_size,
-        onehot_dtype, pallas, with_intensity, has_mask,
-        need_diff_hist if pallas else True, shapes,
+        onehot_dtype, with_intensity, has_mask, shapes,
     )
     all_stats = fn(*args)
     return tuple(_trim_stats(st, orig_b) for st in all_stats)
@@ -458,8 +417,7 @@ def permutation_importance_sharded(
     y_idx = jnp.asarray(labels_to_class_idx(y, classes))
     # keep a host X on host until the placement decision: an eager jnp cast
     # here would commit it to one local device, which the multi-process
-    # branch would then have to fetch back and re-upload (three link
-    # crossings of the full matrix)
+    # branch would then have to fetch back and re-upload
     if isinstance(X, jax.Array):
         if X.dtype != jnp.float32:
             X = X.astype(jnp.float32)  # on-device cast
@@ -471,7 +429,7 @@ def permutation_importance_sharded(
     G = masks.shape[0]
     n_data = mesh.shape["data"]
     # pad on HOST: committing the masks to a local device first would force
-    # the multi-process branch to fetch them back through the link
+    # the multi-process branch to fetch them back
     Gp = -(-G // n_data) * n_data
     masks_np = (
         np.concatenate([masks, np.zeros((Gp - G, F), np.float32)])
@@ -501,9 +459,8 @@ def permutation_importance_sharded(
         masks_p = jnp.asarray(masks_np)
         keys = _split_keys(seed, num=Gp, n_repeats=n_repeats)
 
-    # baseline comes out of the SAME sharded dispatch as the scores (a
-    # separate accuracy jit + scalar fetch would pay one more full link
-    # round trip per call)
+    # baseline comes out of the SAME sharded dispatch as the scores (no
+    # separate accuracy jit + scalar fetch)
     baseline_dev, scores = _sharded_sweep_fn(mesh)(
         masks_p, keys, X, y_idx, apply_fn
     )
@@ -530,7 +487,7 @@ def _split_keys(seed, *, num, n_repeats):
 def _keys_jit(mesh, num, n_repeats):
     """Stable-identity jit computing the sweep key grid ON the cross-process
     mesh from the scalar seed (row-sharded output): the keys never exist on
-    one local device, so nothing is fetched back through the link."""
+    one local device, so nothing is fetched back."""
     from jax.sharding import NamedSharding
 
     row = NamedSharding(mesh, P("data"))
@@ -562,8 +519,7 @@ def _sharded_sweep_fn(mesh):
             return jax.vmap(one_repeat)(kg)
 
         # baseline rides the same program (replicated inputs -> identical
-        # value on every shard); a separate dispatch would cost another
-        # full link round trip per sweep call
+        # value on every shard) instead of a separate dispatch
         return accuracy(X), jax.lax.map(one_group, (masks_l, keys_l))
 
     def wrapped(masks_p, keys, X, y_idx, apply_fn):

@@ -82,7 +82,7 @@ def _run_pipeline_fast(
     """Fused flow: per-batch extraction dispatches also produce a
     device-resident f32 feature block; the head fit + both permutation
     sweeps are ONE further dispatch enqueued BEFORE the wire fetches (its
-    compute and link round trip hide under the feature-matrix D2H)."""
+    compute overlaps the feature-matrix D2H)."""
     from tpumcia.features import registry
     from tpumcia.features.extract import extract_features_pending
     from tpumcia.models.fused import fit_logistic_with_importance
@@ -235,8 +235,7 @@ def run_pipeline(
 
         # the SAME per-batch PRNG stream as the fused fast path, so the
         # synthesized dataset is identical on either path; stays a device
-        # array (a host round trip would move ~12 KB/image through the
-        # slow link twice)
+        # array (no host round trip of ~12 KB/image)
         images = add_noise_channels_batched(
             images_arr,
             seed=cfg.synth.seed,
